@@ -180,3 +180,25 @@ class TestCLI:
 
 if __name__ == "__main__":
     pytest.main([__file__, "-q"])
+
+
+@pytest.mark.parametrize("from_env", [True, False])
+def test_compile_cache_location(tmp_path, from_env):
+    """The package keeps its compilation cache where JAX_COMPILATION_CACHE_DIR
+    says, and otherwise in <checkout>/.jax_cache."""
+    import os
+    import subprocess
+    import sys
+
+    repo = Path(__file__).resolve().parents[1]
+    env = {k: v for k, v in os.environ.items() if k != "JAX_COMPILATION_CACHE_DIR"}
+    env["JAX_PLATFORMS"] = "cpu"
+    env["PYTHONPATH"] = str(repo)
+    if from_env:
+        env["JAX_COMPILATION_CACHE_DIR"] = str(tmp_path / "cache")
+    out = subprocess.run(
+        [sys.executable, "-c",
+         "import velocity_tpu, jax; print(jax.config.jax_compilation_cache_dir)"],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=120, check=True)
+    want = tmp_path / "cache" if from_env else repo / ".jax_cache"
+    assert Path(out.stdout.strip().splitlines()[-1]) == want

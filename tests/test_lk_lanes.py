@@ -153,3 +153,56 @@ class TestLanesMatchesReference:
         d = np.linalg.norm(np.asarray(ours.points)[st] - cvp[st], axis=1)
         assert np.median(d) < 0.3, np.median(d)
         assert (d < 1.0).mean() > 0.85
+
+
+@pytest.mark.parametrize("corners", [
+    [[5, 7], [100, 40], [311, 230], [0, 0]],  # interior and the last valid corner
+    [[-9, 4], [330, -3], [300, 250], [-20, 500]],  # past each border: clamped
+])
+def test_slab_extraction_matches_numpy_slicing(corners):
+    from velocity_tpu.ops.lk_lanes import _extract_slabs
+
+    img = RNG.uniform(0, 255, (240, 320)).astype(np.float32)
+    size = 9
+    slabs, cl = _extract_slabs(jnp.asarray(img), jnp.asarray(corners, jnp.int32), size)
+    slabs, cl = np.asarray(slabs), np.asarray(cl)
+    assert slabs.shape == (size, size, len(corners))
+    for n, (x, y) in enumerate(corners):
+        cx, cy = min(max(x, 0), 320 - size), min(max(y, 0), 240 - size)
+        assert cl[n].tolist() == [cx, cy]
+        np.testing.assert_array_equal(slabs[:, :, n], img[cy : cy + size, cx : cx + size])
+
+
+def _synthetic_stage_case(width, height, n_points, stage):
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from velocity_tpu.config import TrackerConfig
+    from velocity_tpu.ingest.synthetic import SyntheticClip
+
+    clip = SyntheticClip(2, width=width, height=height)
+    f0, f1, pts = chip_smoke.lk_pair(clip, n_points, margin=width // 48)
+    cfg = TrackerConfig()
+    if stage == "coarse":
+        m = chip_smoke.compare_lanes_to_oracle(f0, f1, pts, cfg.lk_coarse)
+    else:
+        m = chip_smoke.compare_lanes_to_oracle(f0, f1, pts, cfg.lk_fine,
+                                               chip_smoke.car_affine(clip))
+    chip_smoke.check_lk(m, stage)
+    return m
+
+
+@pytest.mark.parametrize("stage", ["coarse", "fine"])
+def test_lanes_vs_oracle_on_synthetic_clip(stage):
+    """The chip smoke's comparison at a CPU-sized shape: stage 1-2 (window 15
+    on the pyramid) and stage 3 (window 51 through the car affine)."""
+    m = _synthetic_stage_case(640, 360, 128, stage)
+    assert m["tracked"] >= 100
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stage", ["coarse", "fine"])
+def test_lanes_vs_oracle_at_1080p_on_gpu(stage):
+    _synthetic_stage_case(1920, 1080, 1024, stage)

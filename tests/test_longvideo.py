@@ -123,7 +123,7 @@ class TestLongVideoFullLength:
         n = res.S.shape[0]
         assert n == 160, n  # 201-frame video, annotated start at 41
         # full-length mean within the long-range noise band around GT 20
-        # (measured 20.9 +/- 3.8 on TPU; see LONGVIDEO.md)
+        # (round-5 measurement: 20.9 +/- 3.8 km/h)
         assert 17.0 < res.speed_kmh < 24.0, res.speed_kmh
         # the golden 20-frame prefix stays golden in the full-length run
         assert abs(float(res.S[1:20, 8].mean()) - 18.74) < 1.0

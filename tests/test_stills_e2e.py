@@ -74,8 +74,8 @@ class TestStillsEndToEnd:
         ann = DATA.parent / "matlab" / "IMG_4122.JPG.mat"
         res = est.run([str(p) for p in STILLS], annotation=str(ann),
                       verbose=False)
-        # GT ~= 40 km/h (vidExample.py:26); +/-10% band. Measured on the real
-        # TPU 2026-08-21: 41.10 +/- 2.90 km/h, residual 0.88 px.
+        # GT ~= 40 km/h (vidExample.py:26); +/-10% band. Round-5
+        # measurement: 41.10 +/- 2.90 km/h, residual 0.88 px.
         assert 36.0 < res.speed_kmh < 44.0, res.speed_kmh
         # the post-MSV pose solve must run from a populated car structure
         # (the pre-round-5 pipeline decayed to 3 background-free tracks)

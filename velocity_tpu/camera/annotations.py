@@ -28,8 +28,11 @@ class Annotation:
         return Annotation(self.q * factor, self.fname, self.start_frame)
 
 
-def load_annotation(path: str | Path) -> Annotation:
-    """Load a .mat (reference format) or .npz (native format) annotation."""
+def load_annotation(path: str | Path | Annotation) -> Annotation:
+    """Load a .mat (reference format) or .npz (native format) annotation; an
+    ``Annotation`` is returned unchanged."""
+    if isinstance(path, Annotation):
+        return path
     path = Path(path)
     if path.suffix == ".npz":
         data = np.load(path, allow_pickle=False)

@@ -109,6 +109,7 @@ def cmd_longvideo(args) -> int:
         "residual_px": res.residual_px, "fps": res.timings["fps"],
         "windows": res.timings.get("windows"),
         "ba_refined": res.timings.get("ba_refined"),
+        "ba_accepted": res.timings.get("ba_accepted"),
     }
     if args.smooth:
         import numpy as np
@@ -168,7 +169,7 @@ def cmd_bench(args) -> int:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="velocity_tpu",
-                                description="TPU-native SfM vehicle speed estimation")
+                                description="SfM vehicle speed estimation")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     sp = sub.add_parser("speed", help="video speed estimation")

@@ -31,8 +31,8 @@ class TrackerConfig:
     """Three-stage KLT tracker configuration (reference KLTmain, KLT.py:99-134)."""
 
     coarse_scale: float = 0.25  # stage-1 image downscale
-    # "lanes" (lanes-last stencil, fastest on TPU) | "fast" (matmul-formulated)
-    # | "reference" (gather)
+    # "lanes" (lanes-last stencil, the product path) | "fast"
+    # (matmul-formulated) | "reference" (gather)
     lk_backend: str = "lanes"
     lk_coarse: LKConfig = field(default_factory=lambda: LKConfig(15, 4, 10, 0.1))
     lk_fine: LKConfig = field(default_factory=lambda: LKConfig(51, 0, 30, 0.001))
@@ -87,7 +87,7 @@ class SolverConfig:
     damping: float = 1.0  # Marquardt damping (identity scale)
     tol: float = 1e-8  # rms(delta) convergence
     ramp_rate: float = 0.2  # step scale = min(((i+1)*ramp_rate)^2, 1)
-    dtype: str = "float64"  # solver island dtype ("float32" on TPU-only paths)
+    dtype: str = "float64"  # solver island dtype (benchmarks run "float32")
     # robust second pass of the translation solve: when the first pass ends
     # with rms residual above `pose_reject_above_px`, points whose residual
     # exceeds `pose_reject_sigma * rms` are masked and the solve repeats from

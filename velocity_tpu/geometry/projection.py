@@ -7,8 +7,8 @@ see /root/reference/utils/images.py:148-151).
 
 Projection math is numerically identical to the reference's row-vector forms
 (``world2image``/``image2world``/``pixel2uvec``, /root/reference/utils/common.py:49-126)
-but expressed as fused scalar ops, which XLA maps cleanly onto the VPU without
-tiny 3x3 matmuls.
+but expressed as fused scalar ops, which XLA fuses into elementwise kernels
+without tiny 3x3 matmuls.
 """
 
 from __future__ import annotations

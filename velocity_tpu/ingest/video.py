@@ -3,7 +3,7 @@
 Decode stays on the host CPU (ffmpeg via OpenCV, the same native path the
 reference uses at vidExample.py:88-91); frames are converted to grayscale and
 prefetched on a background thread so device compute overlaps decode — the
-host->HBM pipeline from SURVEY.md §7.3 item 6.
+host-to-device pipeline from SURVEY.md §7.3 item 6.
 """
 
 from __future__ import annotations
@@ -38,7 +38,13 @@ class VideoReader:
     """
 
     def __init__(self, path: str | Path, platform: str = "iPhone 6s"):
-        import cv2
+        try:
+            import cv2
+        except ImportError as e:
+            raise ImportError(
+                f"reading the video file {path} needs OpenCV (the cv2 "
+                "module), which is not installed; synthetic clips "
+                "(velocity_tpu.ingest.synthetic) need no decoder") from e
 
         self._cv2 = cv2
         self.path = str(path)
@@ -91,24 +97,7 @@ class VideoReader:
         self, start: int = 0, count: int | None = None, step: int = 1, depth: int = 4
     ) -> Iterator[Frame]:
         """Like ``frames`` but decoded on a background thread (depth-bounded)."""
-        q: queue.Queue = queue.Queue(maxsize=depth)
-        SENTINEL = object()
-
-        def worker():
-            try:
-                for fr in self.frames(start, count, step):
-                    q.put(fr)
-            finally:
-                q.put(SENTINEL)
-
-        t = threading.Thread(target=worker, daemon=True)
-        t.start()
-        while True:
-            item = q.get()
-            if item is SENTINEL:
-                break
-            yield item
-        t.join()
+        return prefetch_frames(self.frames(start, count, step), depth)
 
     def release(self) -> None:
         self.cap.release()
@@ -120,8 +109,38 @@ class VideoReader:
         self.release()
 
 
-def open_video(path: str | Path, platform: str = "iPhone 6s") -> VideoReader:
-    return VideoReader(path, platform)
+def prefetch_frames(frames: Iterator[Frame], depth: int = 4) -> Iterator[Frame]:
+    """Drain ``frames`` on a background thread, ``depth`` frames ahead."""
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    SENTINEL = object()
+
+    def worker():
+        try:
+            for fr in frames:
+                q.put(fr)
+        finally:
+            q.put(SENTINEL)
+
+    t = threading.Thread(target=worker, daemon=True)
+    t.start()
+    while True:
+        item = q.get()
+        if item is SENTINEL:
+            break
+        yield item
+    t.join()
+
+
+def is_path(video) -> bool:
+    """True for a media path, False for a reader object."""
+    return isinstance(video, (str, Path))
+
+
+def open_video(video, platform: str = "iPhone 6s"):
+    """A frame reader for ``video``: a path opens a ``VideoReader``; a reader
+    (any object with its interface, such as ``ingest.synthetic.SyntheticClip``)
+    is returned unchanged."""
+    return VideoReader(video, platform) if is_path(video) else video
 
 
 def dump_frames(

@@ -1,9 +1,8 @@
 """Batched image ops: interpolation, pyramids, LK tracking, Harris, RANSAC, robust stats.
 
-Two implementations share one API: a pure-XLA path (``backend="xla"``, works on
-CPU/TPU, the correctness reference) and Pallas TPU kernels for the hot ops
-(``backend="pallas"``). The XLA path is itself TPU-shaped: static shapes,
-batched gathers, no data-dependent control flow.
+Everything is plain JAX/XLA with static shapes, batched gathers and no
+data-dependent host control flow. ``ops/lk.py`` (gather LK) is the reference
+the faster LK engines (``lk_lanes``, ``lk_fast``) are tested against.
 """
 
 from velocity_tpu.ops.interp import bilinear_sample, gather_patches, affine_grid_patches  # noqa: F401

@@ -9,7 +9,7 @@ Parity targets:
 - ``corner_subpix`` <-> cv2.cornerSubPix (vidExample.py:113): iterative
   gradient-weighted centroid solve with the Gaussian window mask.
 
-All outputs are fixed-capacity with validity masks (TPU static shapes).
+All outputs are fixed-capacity with validity masks (static shapes).
 """
 
 from __future__ import annotations
@@ -19,8 +19,6 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
-
-from velocity_tpu.ops.interp import extract_patches, sample_patches
 
 
 def _conv3(img, kx3, border="reflect"):
@@ -108,7 +106,11 @@ def good_features(
     keep = is_peak & allowed & (R > quality_level * Rmax)
 
     flatR = jnp.where(keep, R, -jnp.inf).ravel()
-    vals, idx = jax.lax.top_k(flatR, max_corners)
+    # top-k as one stable sort (ties keep the lower index, like lax.top_k):
+    # XLA's GPU TopK exhausts the host's memory while compiling for a 1080p
+    # response map and k = 1024
+    idx = jnp.argsort(-flatR, stable=True)[:max_corners]
+    vals = flatR[idx]
     ys = (idx // W).astype(R.dtype)
     xs = (idx % W).astype(R.dtype)
     return Corners(
@@ -126,14 +128,12 @@ def corner_subpix(img, points, half_win: int = 5, max_iters: int = 100, eps: flo
     central-difference gradients, solve the gradient-weighted centroid system
     with the Gaussian mask exp(-(i^2+j^2)/half_win^2), move the corner.
 
-    TPU formulation: corners drift at most ``half_win + 1`` px from their
-    seed (the cv2 bail-out), so one axis-aligned slab per point is extracted
-    up front (Pallas DMA on TPU) in the lanes-last (Q, Q, N) layout, and
-    every iteration resamples it with the static-shift tap stencil — points
-    ride the 128-wide lane axis, window dims live on the sliceable major
-    axes. The earlier (N, P, P) matmul sampler put P (~13) on the lane axis
-    at 10% fill and cost ~1.5 s per 1024-corner refine on v5e; this form
-    runs in ~20 ms.
+    Stencil formulation: corners drift at most ``half_win + 1`` px from
+    their seed (the cv2 bail-out), so one axis-aligned slab per point is
+    extracted up front in the lanes-last (Q, Q, N) layout, and every
+    iteration resamples it with the static-shift tap stencil of
+    ops/lk_lanes.py — points on the contiguous minor axis, window dims on the
+    sliceable major axes.
     """
     from velocity_tpu.ops.lk_lanes import _extract_slabs, _sample_taps
 

@@ -1,8 +1,8 @@
 """Bilinear sampling and patch gathering — the common core of LK/warp/subpix.
 
-These are the gather primitives everything image-side builds on. The XLA
-lowering is a batched gather; the Pallas kernels (ops/*_pallas.py) replace them
-on the TPU hot path with per-point VMEM DMA + VPU blends.
+These are the gather primitives everything image-side builds on; the LK
+engines avoid per-iteration gathers by extracting one patch per point
+(``extract_patches``) and resampling it with stencils or small matmuls.
 """
 
 from __future__ import annotations
@@ -87,9 +87,9 @@ def affine_grid_patches(img, centers, size: int, M, border: str = "clamp"):
 def extract_patches(img, corners, size: int):
     """(N, size, size) pixel patches at integer ``corners`` (N, 2) xy, clamped.
 
-    The TPU-friendly irregular access: one ``dynamic_slice`` per point (XLA
-    keeps this on the fast path, unlike arbitrary gathers). Images smaller
-    than the patch are edge-padded first. Returns (patches, clamped_corners).
+    One ``dynamic_slice`` per point: the only memory-irregular access of the
+    LK engines. Images smaller than the patch are edge-padded first. Returns
+    (patches, clamped_corners).
     """
     import jax
 
@@ -129,8 +129,8 @@ def sample_patches(patches, dy, dx, out_size: int, cubic: bool = False):
     """Resample (N, P, P) patches at fractional offsets -> (N, out, out).
 
     Sampling as two small batched matmuls (``S_y @ patch @ S_x^T`` with
-    interpolation-weight matrices) instead of a gather — the core TPU trick
-    shared by the fast LK loop and subpixel refinement. ``cubic=True`` selects
+    interpolation-weight matrices) instead of a gather, as the matmul LK
+    loop (ops/lk_fast.py) uses it. ``cubic=True`` selects
     Catmull-Rom weights; use it when ``patches`` are themselves interpolated
     (a second linear pass would compound the smoothing).
     """

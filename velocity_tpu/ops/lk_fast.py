@@ -1,18 +1,17 @@
-"""MXU-formulated Lucas-Kanade: patch extraction once, iterations as matmuls.
+"""Matmul-formulated Lucas-Kanade: patch extraction once, iterations as matmuls.
 
 The reference-path tracker (ops/lk.py) bilinear-samples the destination image
-every iteration — a batched gather, which TPUs execute on the slow scalar
-path. This engine restructures LK so the inner loop is pure dense math:
+every iteration — a batched gather. This engine restructures LK so the inner
+loop is pure dense math:
 
   1. Per level, extract one padded patch per point from each image — the only
-    memory-irregular step (axis-aligned ``dynamic_slice`` per point, or the
-    Pallas DMA kernel in ops/patch_pallas.py; affine-warped destination
-    patches are materialized once via a single bilinear gather, mirroring the
-    reference's warp-once-then-track, KLT.py:70-83).
+    memory-irregular step (axis-aligned ``dynamic_slice`` per point;
+    affine-warped destination patches are materialized once through a tap
+    stencil, mirroring the reference's warp-once-then-track, KLT.py:70-83).
   2. Bilinear sampling at a fractional offset (dy, dx) becomes
     ``S_y(dy) @ patch @ S_x(dx)^T`` with tiny interpolation-weight matrices
     built from iota arithmetic — so every LK iteration is two small batched
-    matmuls plus VPU reductions. No gathers, no dynamic slices.
+    matmuls plus reductions. No gathers, no dynamic slices.
 
 Semantics match ops/lk.py (same gradients, eps/oscillation stopping, min-eig
 and bounds status) with one documented deviation: each point's search is
@@ -29,7 +28,7 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 
-from velocity_tpu.ops.interp import sample_patches
+from velocity_tpu.ops.interp import extract_patches, sample_patches
 from velocity_tpu.ops.lk import LKResult, scharr_derivatives, _affine_for_level
 from velocity_tpu.ops.pyramid import build_pyramid
 
@@ -39,52 +38,6 @@ from velocity_tpu.ops.pyramid import build_pyramid
 # where a second linear pass would compound the smoothing and bias converged
 # LK positions by ~0.2 px — past the 0.3 px fb gate.
 _sample = sample_patches
-
-
-# extraction backend: None = auto (Pallas DMA kernel on TPU, XLA elsewhere)
-USE_PALLAS_EXTRACT: bool | None = None
-
-
-def _use_pallas() -> bool:
-    if USE_PALLAS_EXTRACT is not None:
-        return USE_PALLAS_EXTRACT
-    try:
-        if jax.default_backend() != "tpu":
-            return False
-        from velocity_tpu.ops.patch_pallas import available
-
-        return available()
-    except Exception:
-        return False
-
-
-def _extract_axis_aligned(img, corners, size: int):
-    """(N, size, size) patches at integer corners (clamped).
-
-    Dispatches to the Pallas per-point-DMA kernel on TPU (ops/patch_pallas.py)
-    and to vmapped ``dynamic_slice`` elsewhere. Images smaller than the patch
-    (top pyramid levels) are edge-padded first.
-    """
-    H, W = img.shape
-    if H < size or W < size:
-        img = jnp.pad(
-            img, ((0, max(0, size - H)), (0, max(0, size - W))), mode="edge"
-        )
-        H, W = img.shape
-    if _use_pallas():
-        from velocity_tpu.ops.patch_pallas import extract_patches_pallas
-
-        patches, cl = extract_patches_pallas(img, corners, size)
-        return patches.astype(img.dtype), cl
-
-    cy = jnp.clip(corners[:, 1], 0, H - size)
-    cx = jnp.clip(corners[:, 0], 0, W - size)
-
-    def one(cyi, cxi):
-        return jax.lax.dynamic_slice(img, (cyi, cxi), (size, size))
-
-    patches = jax.vmap(one)(cy, cx)
-    return patches, jnp.stack([cx, cy], axis=1)
 
 
 # Stencil width for warped extraction: per-pixel source positions may deviate
@@ -104,13 +57,12 @@ def _extract_warped(img, centers, size: int, M):
     zero — so the in-loop patch resampling interpolates only the residual
     motion, and its error vanishes as LK converges.
 
-    TPU formulation: XLA lowers the naive per-pixel bilinear gather of this
-    patch abysmally (~200 ms/call measured on v5e — it re-reads the image per
-    index batch). Because M is near-identity, every sample position lies
-    within a few pixels of the identity grid, so the gather is really a
-    *stencil*: one axis-aligned slab ``dynamic_slice`` per point, then a
-    taps×taps weighted sum of statically-shifted slab slices (pure VPU
-    elementwise work, no gathers). Numerics are exact bilinear; positions
+    Stencil formulation: because M is near-identity, every sample position
+    lies within a few pixels of the identity grid, so the per-pixel bilinear
+    gather of this patch is really a *stencil*: one axis-aligned slab
+    ``dynamic_slice`` per point, then a taps×taps weighted sum of
+    statically-shifted slab slices (elementwise work, no gathers).
+    Numerics are exact bilinear; positions
     further than the stencil reach (only possible for extreme warps or at
     image borders, where the slab corner clamps) clamp like a border."""
     dtype = centers.dtype
@@ -139,7 +91,7 @@ def _extract_warped(img, centers, size: int, M):
     imgp = jnp.pad(img, pad, mode="edge")
     kx = jnp.floor(base_x - half).astype(jnp.int32) - margin + pad
     ky = jnp.floor(base_y - half).astype(jnp.int32) - margin + pad
-    slab, K = _extract_axis_aligned(imgp, jnp.stack([kx, ky], axis=1), Q)
+    slab, K = extract_patches(imgp, jnp.stack([kx, ky], axis=1), Q)
 
     # sample positions in slab coords, re-expressed relative to the identity
     # grid (i, j): clip deviations to the stencil's reach
@@ -231,7 +183,7 @@ def lk_pyramidal_fast(
 
         # ---- one-time source patch + gradients ----
         corner_f = jnp.floor(p_l).astype(jnp.int32) - (win - 1) // 2 - R - 1
-        spatch, scorner = _extract_axis_aligned(simg, corner_f, P)
+        spatch, scorner = extract_patches(simg, corner_f, P)
         sgx, sgy = _patch_gradients(spatch)
         # fixed fractional source window start within the patch
         su = p_l[:, 0] - half - scorner[:, 0].astype(dtype)
@@ -294,7 +246,7 @@ def lk_pyramidal_fast(
         if Md is None:
             anchor = next_pts
             dcorner_i = jnp.floor(anchor).astype(jnp.int32) - (win - 1) // 2 - R - 1
-            dpatch, dcorner = _extract_axis_aligned(dimg, dcorner_i, P)
+            dpatch, dcorner = extract_patches(dimg, dcorner_i, P)
             body = make_body(anchor, dpatch, -dcorner[:, 0].astype(dtype),
                              -dcorner[:, 1].astype(dtype), False)
             next_pts, _, _ = jax.lax.fori_loop(0, iters, body, (next_pts, done0, pd0))
@@ -407,7 +359,7 @@ def _lk_backward_warped(
 
         guess_l = next_pts
         dci = jnp.floor(guess_l).astype(jnp.int32) - (win - 1) // 2 - R - 1
-        dpatch, dcorner = _extract_axis_aligned(dimg, dci, P)
+        dpatch, dcorner = extract_patches(dimg, dci, P)
         base_x = -dcorner[:, 0].astype(dtype)
         base_y = -dcorner[:, 1].astype(dtype)
 

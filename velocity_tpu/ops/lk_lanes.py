@@ -1,24 +1,18 @@
-"""Lanes-last Lucas-Kanade: the point axis rides the TPU's 128-wide lanes.
+"""Lanes-last Lucas-Kanade: the point axis is the minor (contiguous) axis.
 
-Round-1's fast LK (ops/lk_fast.py) stored patches as (N, P, P) and sampled
-them with per-point weight-matrix matmuls. Profiling on v5e showed that layout
-is hardware-hostile: the last dim (P = 24..70) occupies the 128-lane axis at
-20-55% fill, and the batched (win x P)@(P x P) matmuls are far below MXU tile
-size, so every LK iteration cost ~1.5 ms and a frame step ~123 ms. This
-engine transposes the world:
+The matmul-form LK (ops/lk_fast.py) stores patches as (N, P, P) and samples
+them with per-point weight-matrix matmuls: batched (win x P)@(P x P)
+products far too small for a matrix unit. This engine transposes the world:
 
   * All patch tensors are (P, P, N) with the point count N on the minor
-    (lane) axis — every elementwise op and reduction packs the VPU with
-    points, and P lives on the freely-sliceable major dims.
+    axis — every elementwise op and reduction runs over contiguous points,
+    and P lives on the freely-sliceable major dims.
   * Bilinear/cubic sampling at per-point fractional offsets becomes a
     two-pass tap stencil: a weighted sum of statically-shifted slices with
-    (1, 1, N) weight broadcasts. No gathers, no small matmuls. Measured
-    ~0.17 ms per 51-win x 1024-point LK iteration (~10x faster than the
-    matmul form), scaling with N.
-  * Iterations run in unrolled blocks inside ``lax.while_loop`` (this
-    toolchain hangs compiling ``fori_loop`` around the stencil; unrolled
-    blocks compile fine and give batch-level early exit: a converged batch
-    skips the remaining blocks entirely).
+    (1, 1, N) weight broadcasts. No gathers, no small matmuls.
+  * Iterations run in unrolled blocks inside ``lax.while_loop``, which gives
+    batch-level early exit: a converged batch skips the remaining blocks
+    entirely.
   * Every block re-anchors: destination patches are re-extracted at the
     current estimates, so a point can travel arbitrarily far over its
     iteration budget. This removes lk_fast's documented ``search_radius``
@@ -40,9 +34,9 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 
+from velocity_tpu.ops.interp import extract_patches
 from velocity_tpu.ops.lk import LKResult, _affine_for_level
 from velocity_tpu.ops.pyramid import build_pyramid
-from velocity_tpu.ops.slab_pallas import extract_slabs_dma, pad_aligned, use_pallas
 
 # Iterations per unrolled block, and the maximum travel (px) from the block's
 # extraction anchor before in-block sampling clamps. The next block's
@@ -60,44 +54,18 @@ def _round8(x: int) -> int:
     return (x + 7) & ~7
 
 
-def _use_block_kernel() -> bool:
-    """Fused LK iteration-block kernel usable? (TPU, not disabled)."""
-    import os
-
-    if os.environ.get("VELOCITY_TPU_NO_LK_BLOCK"):
-        return False
-    return use_pallas()
-
-
 def _extract_slabs(img, corners, size: int):
-    """(size, size, N) integer-corner patches, lanes-last.
+    """(size, size, N) integer-corner patches, lanes-last: one
+    ``dynamic_slice`` per point (ops/interp.py ``extract_patches``) and one
+    transpose. Returns (slabs, clamped corners (N, 2) xy).
 
-    On TPU: one aligned HBM->VMEM DMA per point with on-chip sub-tile shift
-    (ops/slab_pallas.py, ~30x the XLA gather). Elsewhere: one
-    ``dynamic_slice`` per point. Either way a single transpose lands the
-    lanes-last layout. Corners clamp into the image. Returns
-    (slabs, clamped corners (N, 2) xy).
-
-    Callers must edge-pad ``img`` (and offset ``corners`` by the pad) so that
-    in-bounds points never actually clamp — a clamped corner shifts the slab
-    content relative to the stencil anchor and corrupts every sample. Use
-    ``pad_aligned`` so the padded dims satisfy the DMA tiling (8, 128).
-    """
-    H, W = img.shape
-    if H < size or W < size:
-        img = jnp.pad(img, ((0, max(0, size - H)), (0, max(0, size - W))), mode="edge")
-        H, W = img.shape
-    cy = jnp.clip(corners[:, 1], 0, H - size)
-    cx = jnp.clip(corners[:, 0], 0, W - size)
-
-    if use_pallas() and img.dtype == jnp.float32 and H % 8 == 0 and W % 128 == 0:
-        slabs = extract_slabs_dma(img, cx.astype(jnp.int32), cy.astype(jnp.int32), size)
-    else:
-        def one(cyi, cxi):
-            return jax.lax.dynamic_slice(img, (cyi, cxi), (size, size))
-
-        slabs = jax.vmap(one)(cy, cx)
-    return jnp.transpose(slabs, (1, 2, 0)), jnp.stack([cx, cy], axis=1)
+    Corners clamp into the image, and a clamped corner shifts the slab
+    content relative to the stencil anchor and corrupts every sample, so
+    callers edge-pad ``img`` by at least ``size`` on every side and offset
+    ``corners`` by the pad: points inside the status bounds then never
+    clamp."""
+    slabs, cl = extract_patches(img, corners, size)
+    return jnp.transpose(slabs, (1, 2, 0)), cl
 
 
 def _w_linear(a):
@@ -167,13 +135,13 @@ def _extract_warped_lanes(imgp, pad: int, centers, P: int, M, oo: int):
     ``centers[:, n] + (j - oo, i - oo)`` — anchored at the *exact fractional*
     centers so in-loop resampling interpolates only residual motion.
 
-    TPU formulation: bilinear interpolation is separable (w = wy ⊗ wx), so
+    Stencil formulation: bilinear interpolation is separable (w = wy ⊗ wx), so
     the 2-D warp gather factors exactly into an x-resampling pass evaluated
     per *source* row followed by a y-pass — for source row y and dest col j,
     the dest row solves y = by + M10·(j-oo) + M11·(i-oo), hence
     x(y, j) = bx + M00·(j-oo) + M01·(y - by - M10·(j-oo))/M11. Both passes
     are WARP_TAPS-tap stencils over statically-shifted slices of one
-    axis-aligned slab per point: pure VPU elementwise work, no gathers.
+    axis-aligned slab per point: elementwise work, no gathers.
 
     ``imgp`` must be edge-padded by ``pad`` >= slab size so clamped slab
     corners never shift content off the stencil anchor (pad once per level,
@@ -237,9 +205,7 @@ def block_iters_ref(
     trackable, pts, done, prev_delta, it0,
     *, win: int, n_taps: int, cubic: bool, eps: float, Wd: int, Hd: int,
 ):
-    """One BLOCK_ITERS LK update block, XLA form (the Pallas block kernel in
-    ops/lk_block_pallas.py is line-for-line this function; a unit test holds
-    them equal)."""
+    """One BLOCK_ITERS LK update block of ``_level_loop``."""
     dtype = pts.dtype
     half = (win - 1) * 0.5
     eps2 = jnp.asarray(eps * eps, dtype)
@@ -310,7 +276,7 @@ def _level_loop(
         P = _round8(win + 2 * REACH + 3)
         n_taps = 2 * REACH + 4
         Q = _round8(P + WARP_TAPS)
-        imgp = pad_aligned(dimg, Q)
+        imgp = jnp.pad(dimg, Q, mode="edge")
     else:
         margin = REACH  # o0 = REACH + frac, range ~ +-REACH
         P = _round8(win + 2 * REACH + 1)
@@ -318,16 +284,8 @@ def _level_loop(
         # edge-pad once per level so corner clamping inside _extract_slabs can
         # never shift slab content off the stencil anchor: every point inside
         # the in_ok bound lands fully inside the padded image
-        dimgp = pad_aligned(dimg, P)
+        dimgp = jnp.pad(dimg, P, mode="edge")
     n_blocks = max(1, -(-iters // BLOCK_ITERS))
-
-    N_pts = pts0.shape[1]
-    use_block_kernel = (
-        _use_block_kernel()
-        and dtype == jnp.float32
-        and N_pts % 128 == 0
-        and (P <= 32 or N_pts % 64 == 0)
-    )
 
     def cond(carry):
         pts, done, prev_delta, blk = carry
@@ -347,18 +305,6 @@ def _level_loop(
             dpatch, corner = _extract_warped_lanes(imgp, Q, anchor, P, warp, oo)
             bx = -corner[0]
             by = -corner[1]
-
-        if use_block_kernel:
-            from velocity_tpu.ops.lk_block_pallas import lk_block
-
-            p2, d2, pd2 = lk_block(
-                dpatch, Ip, gxp, gyp, a11, a12, a22, inv_det, bx, by,
-                trackable.astype(jnp.float32), pts,
-                done.astype(jnp.float32), prev_delta, blk * BLOCK_ITERS,
-                win=win, n_taps=n_taps, cubic=cubic, eps=eps,
-                Wd=Wd, Hd=Hd,
-            )
-            return p2, d2 > 0.5, pd2, blk + 1
 
         pts, done, prev_delta = block_iters_ref(
             dpatch, Ip, gxp, gyp, a11, a12, a22, inv_det, bx, by,
@@ -439,7 +385,7 @@ def lk_pyramidal_lanes(
         # ---- source window: one extraction, fixed fractional sample ----
         if Ms is None:
             Ps = _round8(win + 2 * src_margin + 1)
-            simgp = pad_aligned(simg, Ps)  # no-clamp guarantee (see _extract_slabs)
+            simgp = jnp.pad(simg, Ps, mode="edge")  # no-clamp guarantee (_extract_slabs)
             ci = jnp.floor(p_l).astype(jnp.int32)
             corners = jnp.stack([ci[0] - (win - 1) // 2 - src_margin + Ps,
                                  ci[1] - (win - 1) // 2 - src_margin + Ps], axis=1)
@@ -451,7 +397,7 @@ def lk_pyramidal_lanes(
             oo_s = (win - 1) // 2 + REACH + 1
             Psw = _round8(win + 2 * REACH + 3)
             Qs = _round8(Psw + WARP_TAPS)
-            simgp = pad_aligned(simg, Qs)
+            simgp = jnp.pad(simg, Qs, mode="edge")
             spatch, scorner2 = _extract_warped_lanes(simgp, Qs, p_l, Psw, Ms, oo_s)
             su = cx - half - scorner2[0]
             sv = cy - half - scorner2[1]

@@ -24,8 +24,7 @@ def _reflect101_pad(img, pad: int):
 def pyr_down(img):
     """One Gaussian pyramid level down (cv2.pyrDown semantics).
 
-    Runs as two MXU matmuls (ops/resample.py) — the stencil/stride form costs
-    ~30x more on TPU (lane-axis shifts and stride-2 gathers)."""
+    Runs as two dense matmuls with banded operators (ops/resample.py)."""
     from velocity_tpu.ops.resample import pyr_down_mat
 
     return pyr_down_mat(img)
@@ -43,7 +42,7 @@ def build_pyramid(img, max_level: int):
 def resize_nearest(img, scale: float):
     """cv2.resize INTER_NEAREST with fx=fy=scale (scale<=1 decimation).
 
-    MXU selection-matmul formulation; 0/1 selection of uint8 values is exact
+    Selection-matmul formulation; 0/1 selection of uint8 values is exact
     in f32, so the result is cast back to the input dtype losslessly."""
     from velocity_tpu.ops.resample import resize_nearest_mat
 

@@ -2,7 +2,7 @@
 
 The reference calls cv2.estimateAffine2D(method=RANSAC) at KLT.py:33,116,127
 (threshold 3 px, adaptive trial count, LSQ refinement on inliers). The
-TPU-native formulation replaces data-dependent trial counts with a fixed batch
+static-shape formulation replaces data-dependent trial counts with a fixed batch
 of hypotheses evaluated in parallel: sample K point-triples with a counter-based
 PRNG, closed-form 2x3 affine per triple, masked inlier count, argmax, then a
 weighted least-squares refit on the winning inlier set.

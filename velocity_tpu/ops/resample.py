@@ -1,13 +1,10 @@
-"""Separable image resampling as MXU matmuls.
+"""Separable image resampling as dense matmuls.
 
-TPU-first formulation of pyramid downsample / nearest resize: a 1-D
-resampling along an image axis is a banded linear map, so a 2-D separable
-resample is ``R @ X @ C^T`` with tiny per-axis operator matrices — two dense
-matmuls that run on the MXU at full tile utilization. The naive stencil
-formulation (shift-add over lane-dim slices, or strided ``[::2]`` gathers)
-is hostile to the TPU vector unit: every lane-axis shift is a cross-lane
-rotate and every lane-axis stride-2 slice is a gather. Profiled on v5e:
-5-level 1080p Gaussian pyramid 6.4 ms as stencils, ~0.2 ms as matmuls.
+Pyramid downsample / nearest resize: a 1-D resampling along an image axis
+is a banded linear map, so a 2-D separable resample is ``R @ X @ C^T`` with
+per-axis operator matrices — two dense matmuls, at ``Precision.HIGHEST`` in
+float32. Whether this beats a 5-tap stencil with stride-2 decimation on the
+GPU is not measured (ROADMAP).
 
 The operator matrices are built on device from ``broadcasted_iota``
 comparisons (banded + border rows), so no multi-MB constants are baked into

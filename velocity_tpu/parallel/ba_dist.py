@@ -8,7 +8,7 @@ cameras — the classic BA structure). Per GN/LM iteration, each device:
   2. inverts its local 3x3 point blocks and forms the point-summed camera
      contributions (``schur_camera_partials``),
   3. ``psum``s the reduced camera Hessian S and rhs over the 'point' axis
-     (rides ICI; this is the only communication — O((6 nc)^2) floats),
+     (over the device interconnect; this is the only communication — O((6 nc)^2) floats),
   4. solves the small replicated camera system, and
   5. back-substitutes its local point updates.
 

@@ -1,22 +1,22 @@
 """Multi-host runtime entry (BASELINE.json config 5; SURVEY.md §2.4 comm row).
 
-On a real TPU pod slice every host runs the same program; this module owns the
-runtime bring-up:
+On a multi-host cluster every host runs the same program; this module owns
+the runtime bring-up:
 
-  1. ``initialize()`` calls ``jax.distributed.initialize`` (env-driven on
-     Cloud TPU: coordinator/process count/process id come from the TPU
-     metadata, so bare ``initialize()`` is correct there; off-pod the three
-     values are passed explicitly);
-  2. ``global_mesh()`` builds the pod-wide mesh from ``jax.devices()``, which
-     after initialize() spans ALL hosts' chips — collectives over its axes
-     ride ICI within a slice and DCN across slices, chosen by XLA;
+  1. ``initialize()`` calls ``jax.distributed.initialize`` with the
+     coordinator ("host:port"), process count and process id (JAX detects
+     them only on clusters whose scheduler it knows);
+  2. ``global_mesh()`` builds the cluster-wide mesh from ``jax.devices()``,
+     which after initialize() spans ALL hosts' devices — collectives over
+     its axes run over the interconnect XLA picks from the device
+     assignment;
   3. the distributed solvers (parallel/ba_dist.py, parallel/windows.py) run
      unchanged over that mesh: ``make_global`` turns each host's copy of a
      global numpy array into a sharded ``jax.Array``.
 
-``selftest_multiprocess()`` validates the whole path without a pod: it spawns
+``selftest_multiprocess()`` validates the whole path without a cluster: it spawns
 N real OS processes (JAX treats each as a "host"), each owning a disjoint set
-of virtual CPU devices, runs ``jax.distributed.initialize`` + a pod-style
+of virtual CPU devices, runs ``jax.distributed.initialize`` + a cluster-style
 point-sharded Schur BA over the global 2-process mesh, and checks the result
 against the single-process solver. CLI:
 
@@ -38,8 +38,8 @@ def initialize(coordinator_address: str | None = None,
                local_device_count: int | None = None) -> None:
     """Bring up the multi-host runtime.
 
-    On Cloud TPU all arguments default from the environment; for CPU/GPU
-    clusters pass coordinator ("host:port"), process count and id. With
+    Pass coordinator ("host:port"), process count and id; JAX fills them
+    in only on clusters whose scheduler it detects. With
     ``local_device_count`` the host platform exposes that many virtual CPU
     devices (must run before any backend initializes).
     """
@@ -94,7 +94,7 @@ def make_global(mesh, pspec, value: np.ndarray):
 
 
 def run_distributed_ba(problem, mesh=None, axis: str = "point", config=None):
-    """Point-sharded Schur BA over the pod mesh (ba_dist.ba_schur_sharded,
+    """Point-sharded Schur BA over the global mesh (ba_dist.ba_schur_sharded,
     with the problem arrays lifted to global jax.Arrays first)."""
     import jax
     from jax.sharding import PartitionSpec as P
@@ -266,7 +266,7 @@ def selftest_multiprocess_windowed(nprocs: int = 2, devs: int = 2,
 
 def selftest_multiprocess(nprocs: int = 2, devs: int = 2,
                           port: int = 53421) -> bool:
-    """Spawn nprocs real processes, run pod-style distributed BA, and check
+    """Spawn nprocs real processes, run cluster-style distributed BA, and check
     the result against the single-process Schur solver."""
     import subprocess
 

@@ -1,10 +1,11 @@
 """Device mesh construction helpers.
 
 Single-host today, multi-host tomorrow: meshes are built from
-``jax.devices()`` which, after ``jax.distributed.initialize`` on a pod slice,
-spans all hosts — nothing else in this package changes for multi-host, since
-all communication is expressed as ``psum``/``all_gather`` over mesh axes (ICI
-within a slice, DCN across hosts, chosen by XLA from the device assignment).
+``jax.devices()`` which, after ``jax.distributed.initialize``, spans all
+hosts — nothing else in this package changes for multi-host, since all
+communication is expressed as ``psum``/``all_gather`` over mesh axes (the
+collectives XLA hands to the interconnect: NVLink within a host, the network
+across hosts).
 """
 
 from __future__ import annotations

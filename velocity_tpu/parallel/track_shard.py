@@ -4,8 +4,7 @@ The classic-TP analog in this framework is sharding the FEATURE axis of the
 batched LK solve: every point's window solve is independent given the frame
 pyramids, so the (static-capacity) track axis partitions across the mesh
 while the pyramids replicate. Each device tracks its lane shard with the
-unchanged lanes-last engine (Pallas kernels and all); there is NO
-communication inside LK — the only global steps in the tracker (RANSAC
+unchanged lanes-last engine; there is NO communication inside LK — the only global steps in the tracker (RANSAC
 affine, survivor counts) consume the all-gathered point results, exactly
 like TP's row/column-parallel matmuls hand off at layer boundaries.
 
@@ -16,10 +15,6 @@ chips in a window group.
 
 from __future__ import annotations
 
-from functools import partial
-
-import jax
-import jax.numpy as jnp
 from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
@@ -36,36 +31,40 @@ def lk_forward_backward_sharded(
     fb_threshold=None,
     guess=None,
     warp_dst=None,
+    src_pyr=None,
+    dst_pyr=None,
     **kw,
 ) -> LKResult:
     """Forward-backward lanes LK with the point axis sharded over ``mesh``.
 
-    Results are bit-identical to the single-device call (per-point math is
-    embarrassingly parallel; pyramids are built redundantly per device,
-    which is the right trade at these image sizes — broadcasting levels
-    would cost more ICI than the rebuild costs FLOPs).
+    Per-point math is embarrassingly parallel, so results are bit-identical
+    to the single-device call given the same pyramids: prebuilt
+    ``src_pyr``/``dst_pyr`` are replicated to every device (without them
+    each device builds its own from the replicated images).
     """
     N = pts_src.shape[0]
     n_shard = mesh.shape[axis]
     if N % n_shard != 0:
         raise ValueError(f"track capacity {N} not divisible by {n_shard}")
 
-    in_specs = (P(), P(), P(axis, None))
-    gspec = P(axis, None) if guess is not None else None
+    # optional operands ride along only when given: points-sharded guess,
+    # replicated pyramids
+    opt = {k: (v, s) for k, v, s in (("guess", guess, P(axis, None)),
+                                      ("src_pyr", src_pyr, P()),
+                                      ("dst_pyr", dst_pyr, P()))
+           if v is not None}
 
-    def shard_fn(src, dst, pts, *opt):
-        g = opt[0] if guess is not None else None
+    def shard_fn(src, dst, pts, *vals):
         r = lk_forward_backward_lanes(
-            src, dst, pts, fb_threshold=fb_threshold, guess=g,
-            warp_dst=warp_dst, **kw,
+            src, dst, pts, fb_threshold=fb_threshold, warp_dst=warp_dst,
+            **dict(zip(opt, vals)), **kw,
         )
         return r.points, r.status
 
-    specs = list(in_specs) + ([gspec] if guess is not None else [])
     fn = shard_map(
-        shard_fn, mesh=mesh, in_specs=tuple(specs),
+        shard_fn, mesh=mesh,
+        in_specs=(P(), P(), P(axis, None)) + tuple(s for _v, s in opt.values()),
         out_specs=(P(axis, None), P(axis)), check_vma=False,
     )
-    args = (src_img, dst_img, pts_src) + ((guess,) if guess is not None else ())
-    pts, status = fn(*args)
+    pts, status = fn(src_img, dst_img, pts_src, *(v for v, _s in opt.values()))
     return LKResult(points=pts, status=status)

@@ -23,6 +23,11 @@ from velocity_tpu.solvers.triangulate import msv_refine_translation
 from velocity_tpu.solvers.ba import BAProblem
 from velocity_tpu.solvers.schur import ba_schur
 
+# plate-pose candidates whose 4-corner rms exceeds the best by more than this
+# (px) are not interpretations of the corners (both planar branches of a
+# hand-clicked quad lie within a few px of each other)
+PLATE_FIT_SLACK_PX = 5.0
+
 
 def resolve_plate_pose(intr64, q, track_px, cfg: PipelineConfig):
     """Disambiguate the frame-0 planar plate pose using the early tracks.
@@ -51,7 +56,13 @@ def resolve_plate_pose(intr64, q, track_px, cfg: PipelineConfig):
     plate = jnp.asarray(license_plate_points(cfg.plate_country), jnp.float64)
     q64 = jnp.asarray(q, jnp.float64)
     cands = plate_pose_candidates(intr64, q64, plate, cfg.solver)
-    p0 = np.nan_to_num(track_px[0].astype(np.float64))
+    # the tracks of a plane do not fix its distance, so a polish that never
+    # converged onto the corners can score as well as the true pose at
+    # another scale: only candidates that explain the corners compete
+    best_fit = float(cands[0].residual_rms)
+    cands = [c for c in cands
+             if float(c.residual_rms) <= best_fit + PLATE_FIT_SLACK_PX]
+    p0 =np.nan_to_num(track_px[0].astype(np.float64))
     valid0 = np.isfinite(track_px[0]).all(axis=1)
     boxa = bounding_rect(np.asarray(q), (10**9, 10**9), border=(0, 0))
     vp0 = valid0 & inside_bbox(p0, boxa)

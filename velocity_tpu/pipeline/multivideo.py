@@ -4,7 +4,7 @@ BASELINE.json config 4 — process several videos concurrently with the batch
 axis laid out over the device mesh: every video's fused frame step is
 shape-uniform (static feature capacity), so the whole steady-state loop is one
 ``vmap``-ed scan whose leading axis XLA partitions across chips. One chip
-still works (lanes run batched on it); a pod shards lanes with zero code
+still works (lanes run batched on it); several devices shard lanes with zero code
 change. Host-side init and the one-shot MSV run per-video between the two
 scan segments, exactly like the single-video scan runner.
 """
@@ -23,7 +23,7 @@ from velocity_tpu.camera.annotations import load_annotation, find_annotation
 from velocity_tpu.pipeline.speedest import SpeedEstimator, RunResult
 from velocity_tpu.pipeline.scan import scan_segment, _decode_stack
 from velocity_tpu.pipeline.roi import inside_bbox
-from velocity_tpu.ingest.video import VideoReader
+from velocity_tpu.ingest.video import open_video
 from velocity_tpu.solvers.triangulate import msv_refine_translation
 from velocity_tpu.pipeline import report
 
@@ -67,7 +67,7 @@ def run_batch(
     # ---- per-video decode + init (host) ----
     grays_all, times_all, cams, inits = [], [], [], []
     for vi, video in enumerate(videos):
-        with VideoReader(video, cfg.platform) as vr:
+        with open_video(video, cfg.platform) as vr:
             cam = vr.info
             if annotations and annotations[vi] is not None:
                 ann = load_annotation(annotations[vi])
@@ -75,7 +75,7 @@ def run_batch(
                 ann = load_annotation(find_annotation(
                     video, [Path(video).parent.parent / "matlab", Path(video).parent]))
             start = (start_frames[vi] if start_frames else ann.start_frame)
-            grays, times, indices, _ = _decode_stack(video, vr, start, n, cfg.read_speed)
+            grays, times, indices = _decode_stack(video, vr, start, n, cfg.read_speed)
         q = ann.q * cfg.native_scale
         p, valid, boxa, boxb = est._init_features(grays[0], q)
         t0, p3, res0 = est._init_geometry(cam, q, p, valid, cfg.native_scale)

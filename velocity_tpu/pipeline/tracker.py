@@ -43,13 +43,12 @@ def _lk_impls(cfg: TrackerConfig):
 def _sharded_fb(cfg: TrackerConfig):
     """Forward-backward LK with the lane axis sharded over a ``feature``
     mesh (TrackerConfig.shard_features devices) — the product hook for
-    parallel/track_shard.py. Prebuilt-pyramid kwargs are dropped: each
-    device rebuilds its pyramids locally (cheaper than broadcasting levels
-    over ICI at these image sizes)."""
+    parallel/track_shard.py. The frame's prebuilt pyramids are replicated to
+    every device, so results match single-device tracking bit for bit."""
     from velocity_tpu.parallel.mesh import make_mesh
     from velocity_tpu.parallel.track_shard import lk_forward_backward_sharded
 
-    def fb(src_img, dst_img, pts_src, *, src_pyr=None, dst_pyr=None, **kw):
+    def fb(src_img, dst_img, pts_src, **kw):
         mesh = make_mesh({"feature": cfg.shard_features})
         return lk_forward_backward_sharded(
             src_img, dst_img, pts_src, mesh, "feature", **kw)
@@ -271,7 +270,7 @@ def _step_core(
         config=solver_cfg,
     )
     # packed scalar summary: one small device->host transfer serves the whole
-    # per-frame report when the caller runs transfer-lean (remote TPU)
+    # per-frame report when the caller runs transfer-lean
     packed = jnp.concatenate(
         [
             pose.t.astype(jnp.float32),

@@ -9,13 +9,13 @@ Parity targets:
 - ``ba_constrained`` <-> reference ``fcnNLS_batch2`` (NLS.py:253-328): the
   straight-line motion prior — one shared rpy, one el/az direction, per-camera
   ranges.
-- ``ba_schur``: the TPU formulation — block-sparse normal equations with Schur
+- ``ba_schur``: the accelerator formulation — block-sparse normal equations with Schur
   complement camera reduction (see solvers/schur.py), same optimum.
 
 Observation layout is a dense (nc, nt) grid with a validity mask: in this
 pipeline every surviving track is visible in all frames of a window (the
 reference keeps exactly those, NLS.py:190-191), so dense batched einsums are
-the natural TPU layout; masked lanes are inert.
+the natural layout; masked lanes are inert.
 """
 
 from __future__ import annotations

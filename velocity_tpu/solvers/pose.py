@@ -45,7 +45,7 @@ def _masked_residual(intr, p, mask, predict):
     the Marquardt damping scaled by 1/fx^2 the LM iterates are mathematically
     identical to the reference's pixel-unit iterates (delta is invariant under
     r -> s*r, lambda -> s^2*lambda), so golden parity is preserved while f32
-    becomes usable on TPU. Assumes fx == fy (true for the whole camera DB).
+    becomes usable. Assumes fx == fy (true for the whole camera DB).
     """
     m = mask[:, None]
     inv_f = 1.0 / intr.fx

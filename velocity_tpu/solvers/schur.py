@@ -1,10 +1,10 @@
 """Block-sparse Gauss-Newton/LM bundle adjustment with Schur-complement camera
-reduction — the TPU-native BA core.
+reduction — the accelerator BA core.
 
 Identical iterates to ``ba_dense`` (same normal equations H = [[U,W],[W^T,V]],
 same damping/step rules) but never materializes H: per-observation 2x3 point
 and 2x6 camera Jacobian blocks are assembled analytically on the dense
-(nc, nt) observation grid as batched einsums (MXU/VPU-friendly), the 3x3 point
+(nc, nt) observation grid as batched einsums, the 3x3 point
 blocks are inverted batched, and only the reduced (6(nc-1))^2 camera system is
 solved densely.
 

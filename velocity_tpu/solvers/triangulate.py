@@ -5,7 +5,7 @@ Parity targets (/root/reference/utils/MSV.py):
   two-ray nearest-point midpoints averaged over all C(nf,2) frame pairs.
 - ``nray_intercept``          <-> ``fcnNvintercept`` (MSV.py:146-175): per-point
   3x3 normal equations over all N rays — the formulation that batches cleanly
-  on TPU (a (N,3,3) batched solve instead of O(nf^2) pair enumeration).
+  (a (N,3,3) batched solve instead of O(nf^2) pair enumeration).
 - ``msv_refine_translation``  <-> ``fcnMSV1_t`` (MSV.py:8-49): Gauss-Newton over
   the newest camera's translation where the residual re-triangulates the cloud
   at every iterate (structure and pose coupled like a tiny BA). Jacobians are
@@ -73,7 +73,7 @@ def nray_intercept(origins: jnp.ndarray, rays: jnp.ndarray) -> jnp.ndarray:
     """Least-squares intersection of N rays per point via 3x3 normal equations.
 
     For each point: solve  [sum_f (I - u_f u_f^T)] x = sum_f (I - u_f u_f^T) A_f.
-    This is the TPU-native batched formulation (one (N,3,3) solve).
+    This is the batched formulation (one (N,3,3) solve).
 
     Args:
       origins: (nf, 3); rays: (nf, N, 3) unit rays.
